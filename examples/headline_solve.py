@@ -1,14 +1,13 @@
 """Flagship production solve: 3D Poisson to ‖r‖₂ ≤ 1e-10, fast path.
 
-The configuration behind the round-5 headline numbers (BASELINE.md,
-TPU v5e, ONE chip, compiled single-dispatch solves) — dw-precision
-MG-PCG at 9 iterations at EVERY size: 0.037 s at 64³, 0.127 s at 128³,
-1.49 s at 256³, 12.1 s at 512³ (where the banded band alone would need
-23 GB > HBM); defect correction (cheb frac 32): 0.047/0.162/2.15/17.7 s:
+The configuration of the headline solves (compiled single-dispatch
+solves; times in PERF.md) — dw-precision MG-PCG, and defect correction
+with the Chebyshev window at fraction 32:
 
-- Kronecker-sum operator (structure-exploiting; ~1050 Gnnz/s effective)
+- Kronecker-sum operator (structure-exploiting: O(n) data, where the
+  banded band of a 512³ cubic grid alone would take 370 GB)
 - Chebyshev(4)-smoothed f32 V-cycles
-- double-word f32 (EFT) outer recurrences — no f64 emulation in the
+- double-word f32 (EFT) outer recurrences — no f64 arithmetic in the
   iterate loop
 - `solve_compiled`: the whole solve is ONE `lax.while_loop` dispatch
 
@@ -38,8 +37,8 @@ def main(n_el=64, degree=3, solver="dc"):
           f"solver={solver}")
     prob = poisson_problem(3, n_el, degree=degree, operator="kron",
                            dtype=jnp.float64)
-    # window fractions: PCG is insensitive (16 kept); DC measurably
-    # prefers 32 at ≥128³ (round-5 sweep, BASELINE.md)
+    # window fractions: PCG is insensitive (16 kept); DC took fewer
+    # cycles with 32 at ≥128³ in a sweep over 64³–512³
     cfg = CycleConfig(nu1=1, nu2=1,
                       smoother=SmootherConfig(
                           "chebyshev",

@@ -1,9 +1,11 @@
 """Config-5 protocol: multi-host distributed solve (BASELINE.json:5).
 
-One process per host; every process runs this same script.  On a TPU pod
-slice the bootstrap auto-detects everything:
+One process per host; every process runs this same script.  On GPU
+hosts, name the coordinator, the process count and each process's index
+(see poms_tpu/parallel/bootstrap.py):
 
-    python examples/multihost_2d.py
+    JAX_COORDINATOR=host0:12345 JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=0 \
+        python examples/multihost_2d.py
 
 On the CPU test tier (the reference's ``mpiexec -n 2`` analogue — two OS
 processes, 4 virtual devices each, collectives crossing the process
@@ -30,7 +32,7 @@ else:
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_enable_x64", jax.default_backend() == "cpu")
+jax.config.update("jax_enable_x64", True)
 
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
@@ -47,7 +49,7 @@ def main():
               f"global_devices={info['global_devices']}")
     ndev = jax.device_count()
     mesh_shape = (max(1, ndev // 2), min(2, ndev))
-    dtype = jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
+    dtype = jnp.float64
     prob = poisson_problem(2, (16 * mesh_shape[0], 16 * mesh_shape[1]),
                            degree=2, dtype=dtype)
     cfg = CycleConfig(nu1=1, nu2=1,

@@ -2,10 +2,12 @@
 (BASELINE.json configs[4] — "multi-host pod-slice 3D V-cycle, W-cycle and
 FMG variants"; VERDICT r4 missing/weak #6).
 
-One process per host; every process runs this same script.  On a TPU pod
-slice the bootstrap auto-detects everything:
+One process per host; every process runs this same script.  On GPU
+hosts, name the coordinator, the process count and each process's index
+(see poms_tpu/parallel/bootstrap.py):
 
-    python examples/multihost_3d.py [--wcycle] [--fmg]
+    JAX_COORDINATOR=host0:12345 JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=0 \
+        python examples/multihost_3d.py [--wcycle] [--fmg]
 
 On the CPU test tier (the reference's ``mpiexec -n 2`` analogue — two OS
 processes, 4 virtual devices each, collectives crossing the process
@@ -33,7 +35,7 @@ else:
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_enable_x64", jax.default_backend() == "cpu")
+jax.config.update("jax_enable_x64", True)
 
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
@@ -85,7 +87,7 @@ def main():
         mesh_shape = (2, 2, 1)
     else:
         mesh_shape = (ndev, 1, 1)
-    dtype = jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
+    dtype = jnp.float64
     n_el = tuple(8 * max(1, m) for m in mesh_shape)
     prob = poisson_problem(3, n_el, degree=2, dtype=dtype)
     legs = [("vcycle", 1, False, 10)]

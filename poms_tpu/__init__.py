@@ -1,38 +1,37 @@
-"""poms_tpu — a TPU-native sparse linear-algebra and geometric-multigrid framework.
+"""poms_tpu — a JAX sparse linear-algebra and geometric-multigrid framework.
 
-Built from scratch on JAX/XLA/Pallas with the capability surface of the
+Built from scratch on JAX/XLA with the capability surface of the
 reference library ``pyccel/poms`` (see SURVEY.md; the reference checkout was
 unavailable — provenance tags [B]/[recall] in SURVEY.md §0 apply):
 
 - tensor-product B-spline stencil operators stored banded ("DIA-of-offsets"),
   with CSR/COO/BSR interchange                      [SURVEY §2 C1–C4]
-- stencil SpMV (jnp reference + Pallas TPU kernels) [SURVEY §2 C5]
+- stencil SpMV (shifted multiply-adds fused by XLA) [SURVEY §2 C5]
 - SpGEMM for Galerkin coarse-operator assembly RAP  [SURVEY §2 C6]
 - weighted-Jacobi / Gauss–Seidel (incl. red-black) smoothers [C7]
 - B-spline restriction/prolongation transfer kernels [C8]
 - coarsest-grid direct (Cholesky/LU) solve          [C11]
 - V/W/FMG multigrid cycles on 1D/2D/3D Poisson      [C12, C13]
 - domain decomposition over a `jax.sharding.Mesh` with per-dim `ppermute`
-  halo exchange and `psum` reductions (the TPU-native equivalent of the
+  halo exchange and `psum` reductions (the JAX equivalent of the
   reference's MPI Cartesian topology)               [SURVEY §2 C9–C10, §5.7/8]
 
 Layout:
   core/     stencil spaces, vectors (halo-padded), banded matrices
   sparse/   CSR/COO containers, interchange, SpGEMM
-  ops/      compute kernels: jnp reference + Pallas TPU implementations
+  ops/      compute kernels: banded SpMV, smoother passes, transfers, EFTs
   parallel/ mesh construction, halo exchange, distributed cycles
   mg/       hierarchy construction (RAP), smoothers, V/W/FMG cycle drivers
   models/   problem definitions: B-spline Poisson assembly 1D/2D/3D
   oracle/   slow, obviously-correct CPU/scipy reference implementation
-  bench/    roofline harness (achieved GB/s, nnz/s vs speed-of-light)
+  bench/    roofline harness (achieved GB/s, nnz/s vs the card's peak)
   utils/    configs, structured convergence logging, checkpointing
 """
 
-# JAX traces of the deep composite programs here (Pallas kernels inside
-# multigrid cycles inside lax.while_loop solves) exceed CPython's default
-# 1000-frame recursion limit (measured: RecursionError tracing the 128^3
-# solve once the fused kron kernel landed inside the cycle).  Raising the
-# limit at import is the standard JAX remedy.  SIDE EFFECT: this mutates
+# JAX traces of the deep composite programs here (multigrid cycles inside
+# lax.while_loop solves) can exceed CPython's default 1000-frame recursion
+# limit.  Raising the limit at import is the standard JAX remedy.
+# SIDE EFFECT: this mutates
 # process-wide interpreter state (a runaway recursion at depth 20000 can
 # overflow the C stack before RecursionError fires); opt out with
 # POMS_TPU_NO_RECURSION_BUMP=1 and raise the limit yourself around the

@@ -33,9 +33,9 @@ def main():
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    from poms_tpu.bench.kernel_probe import _enable_persistent_cache
+    from poms_tpu.utils.compile_cache import enable_compile_cache
 
-    _enable_persistent_cache()
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from poms_tpu.bench.roofline import time_step_loop

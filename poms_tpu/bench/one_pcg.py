@@ -8,40 +8,40 @@ import time
 
 
 def main():
+    from poms_tpu.bench.configs import PCG_CHEB_FRACTION
+
     n_el = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     degree = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     tol = float(sys.argv[3]) if len(sys.argv) > 3 else 1e-10
     precision = sys.argv[4] if len(sys.argv) > 4 else "dw"
-    cheb_fraction = float(sys.argv[5]) if len(sys.argv) > 5 else 16.0
+    cheb_fraction = (float(sys.argv[5]) if len(sys.argv) > 5
+                     else PCG_CHEB_FRACTION)
     cheb_degree = int(sys.argv[6]) if len(sys.argv) > 6 else 4
     low = sys.argv[7] if len(sys.argv) > 7 else "f32"  # f32 | bf16
 
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    from poms_tpu.bench.kernel_probe import _enable_persistent_cache
+    from poms_tpu.utils.compile_cache import enable_compile_cache
 
-    _enable_persistent_cache()
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from poms_tpu.mg.cycles import CycleConfig
+    from poms_tpu.bench.configs import chebyshev_cycle
+    from poms_tpu.bench.configs import num_levels as levels_for
     from poms_tpu.mg.mixed import MGPreconditionedCG
-    from poms_tpu.mg.smoother import SmootherConfig
     from poms_tpu.models.poisson import poisson_problem
 
-    num_levels = max(2, (n_el - 1).bit_length() - 2)
+    num_levels = levels_for(n_el)
     prob = poisson_problem(3, n_el, degree=degree, operator="kron",
                            dtype=jnp.float64)
-    cfg = CycleConfig(nu1=1, nu2=1,
-                      smoother=SmootherConfig("chebyshev",
-                                              cheb_fraction=cheb_fraction,
-                                              cheb_degree=cheb_degree))
+    cfg = chebyshev_cycle(cheb_fraction, cheb_degree)
     low_dtype = {"f32": jnp.float32, "bf16": jnp.bfloat16}[low]
     pcg = MGPreconditionedCG(prob, num_levels=num_levels, cfg=cfg,
                              mixed=True, operator="kron",
                              precision=precision, low_dtype=low_dtype)
-    # big grids: free the f64 RHS and skip the result vector (see
-    # MixedPrecisionMG.solve_compiled docstring — 512³ HBM margins)
+    # big grids: free the f64 RHS and skip the result vector (see the
+    # MixedPrecisionMG.solve_compiled docstring)
     kw = {}
     if n_el >= 384 and precision == "dw":
         from poms_tpu.ops.twofloat import split_f64_jit

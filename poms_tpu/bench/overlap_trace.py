@@ -15,8 +15,8 @@ schedules them concurrently is only visible in a trace.  This module
    compute interval — the overlap fraction.
 
 Usage:  python -m poms_tpu.bench.overlap_trace [out.json]
-(runs the 8-virtual-device CPU mesh when no TPU is reachable — that run
-validates the MACHINERY; scheduling truth needs real multi-chip hardware.)
+(runs on the devices JAX finds: a virtual CPU mesh validates the
+MACHINERY; scheduling truth needs several real cards.)
 """
 from __future__ import annotations
 
@@ -30,8 +30,10 @@ from typing import Dict, List, Tuple
 __all__ = ["capture_trace", "parse_perfetto", "overlap_report",
            "run_overlap_check"]
 
+# XLA's collective op names, and "nccl" for the NCCL kernels that carry
+# them on a GPU (e.g. ncclDevKernel_SendRecv for a collective-permute)
 _COMM_KEYS = ("collective-permute", "all-gather", "all-reduce",
-              "reduce-scatter", "collective")
+              "reduce-scatter", "collective", "nccl")
 _SKIP_KEYS = ("thread", "process", "Steps", "profiler", "Flow")
 
 
@@ -135,9 +137,7 @@ def run_overlap_check(out_json: str | None = None, n_el: int = 32,
 
     ndev = len(jax.devices())
     mesh_shape = (2, ndev // 2) if ndev >= 4 else (min(2, ndev), 1)
-    prob = poisson_problem(2, n_el, degree=2,
-                           dtype=jnp.float32 if jax.default_backend()
-                           not in ("cpu",) else jnp.float64)
+    prob = poisson_problem(2, n_el, degree=2, dtype=jnp.float64)
     cfg = CycleConfig(nu1=1, nu2=1,
                       smoother=SmootherConfig(kind="jacobi", omega=0.8))
     mg = DistributedMG(prob, num_levels=2, mesh_shape=mesh_shape, cfg=cfg,
@@ -179,6 +179,10 @@ def run_overlap_ab(out_json: str | None = None, n_el: int = 32) -> Dict:
 
 if __name__ == "__main__":
     import sys
+
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
 
     out = sys.argv[1] if len(sys.argv) > 1 else None
     if "--ab" in sys.argv:

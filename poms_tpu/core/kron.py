@@ -1,8 +1,8 @@
 """Kronecker-sum operators: structure-exploiting SpMV for tensor products.
 
-TPU-first operator class with no counterpart in the reference (SURVEY.md
-§7.0 — "not a port" means exploiting structure the CUDA/MPI design never
-could): a tensor-product discretization's operator
+An operator class with no counterpart in the reference (SURVEY.md §7.0 —
+exploiting structure the MPI design never could): a tensor-product
+discretization's operator
 
     A = Σ_r  B_r^(1) ⊗ B_r^(2) ⊗ … ⊗ B_r^(d)
 
@@ -17,7 +17,7 @@ across terms:
 Each axis pass is (2p+1) shifted multiply-adds with per-row 1D
 coefficients — O(1) coefficient data streamed against O(n) field data,
 versus the general banded operator's (2p+1)^d-per-point band stream.  For
-3D cubic this cuts HBM traffic ~3× and memory ~343×; storage is O(d² · n)
+3D cubic this cuts memory traffic ~3× and memory ~343×; storage is O(d² · n)
 1D bands, so 512³ grids fit trivially.
 
 The general :class:`StencilMatrix` stays the universal format (assembled
@@ -26,14 +26,14 @@ operators convert to it exactly via ``to_stencil()``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from poms_tpu.core.space import StencilVectorSpace
-from poms_tpu.core.vector import StencilVector, update_ghosts_serial
+from poms_tpu.core.vector import StencilVector
 
 __all__ = ["KroneckerSumOperator", "apply_band_1d_axis"]
 
@@ -99,65 +99,6 @@ class KroneckerSumOperator:
             labels.append(row)
         return labels
 
-    def _band_to_dense(self, B: jnp.ndarray, pad: int) -> jnp.ndarray:
-        """Dense (n, n) matrix of a 1D band (Dirichlet: clipped diagonals).
-
-        Used by the opt-in MXU apply: built from jnp ops so it works on
-        band tracers; n ≤ ~513 keeps it ≤1 MB and the construction is
-        trivial next to the field-sized contractions it enables.
-        """
-        n = B.shape[0]
-        D = None
-        for t in range(B.shape[1]):
-            k = t - pad
-            v = B[: n - k, t] if k >= 0 else B[-k:, t]
-            term = jnp.diag(v, k=k)
-            D = term if D is None else D + term
-        return D
-
-    def _apply_interior_matmul(self, x_int: jnp.ndarray) -> jnp.ndarray:
-        """Σ_r ⊗B via DENSE per-axis matmuls on the MXU (opt-in,
-        ``POMS_TPU_KRON=matmul``; non-periodic only).
-
-        The shifted-MAC apply runs on the VPU; each axis contraction is
-        really an (n×n banded)·(n × rest) product, and on TPU the dense
-        version rides the MXU where the wasted off-band flops are nearly
-        free.  precision=HIGHEST keeps f32-grade products (the bf16 A/B
-        showed single-pass products forfeit iterations).
-        """
-        d = self.space.ndim
-        pads = self.space.pads
-        labels = self._band_labels()
-        prec = {"default": jax.lax.Precision.DEFAULT, "high": jax.lax.Precision.HIGH}.get(__import__("os").environ.get("POMS_TPU_KRON_PREC", ""), jax.lax.Precision.HIGHEST)
-        dense = []
-        for a in range(d):
-            row = {}
-            for r, term in enumerate(self.terms):
-                lb = labels[a][r]
-                if lb not in row:
-                    row[lb] = self._band_to_dense(term[a], pads[a])
-            dense.append(row)
-        partials = {r: x_int for r in range(len(self.terms))}
-        hist = {r: () for r in range(len(self.terms))}
-        for a in range(d - 1, -1, -1):
-            cache = {}
-            for r in range(len(self.terms)):
-                key = hist[r] + (labels[a][r],)
-                if key not in cache:
-                    D = dense[a][labels[a][r]]
-                    # contract axis a against D's columns; put the result
-                    # axis back in place (XLA folds the transposes into
-                    # the matmul's layout choice)
-                    y = jnp.tensordot(partials[r], D, axes=([a], [1]),
-                                      precision=prec)
-                    cache[key] = jnp.moveaxis(y, -1, a)
-                partials[r] = cache[key]
-                hist[r] = key
-        out = None
-        for r in partials:
-            out = partials[r] if out is None else out + partials[r]
-        return out
-
     def _apply_interior(self, x_int: jnp.ndarray) -> jnp.ndarray:
         """Σ_r ⊗B applied with shared partial products (right-to-left).
 
@@ -168,24 +109,6 @@ class KroneckerSumOperator:
         d = self.space.ndim
         pads = self.space.pads
         periodic = self.space.periodic
-        from poms_tpu.ops import dispatch as _d
-
-        import os as _os
-
-        if (_os.environ.get("POMS_TPU_KRON") == "matmul"
-                and not any(periodic)):
-            return self._apply_interior_matmul(x_int)
-
-        if _d.use_pallas_kron(self.space.npts, pads, x_int.dtype):
-            # OPT-IN fused Pallas apply (POMS_TPU_KRON=pallas): whole
-            # contraction chain in VMEM — faster standalone (0.505 vs
-            # 0.70 ms at 128³ p3) but slower inside jitted solves, where
-            # XLA fuses the contractions into neighboring ops and the
-            # pallas_call would block that (dispatch.use_pallas_kron)
-            from poms_tpu.ops.pallas.kron import kron_apply_pallas
-
-            return kron_apply_pallas(self.terms, x_int, self.space.npts,
-                                     pads, periodic)
         labels = self._band_labels()
         partials = {r: x_int for r in range(len(self.terms))}
         hist = {r: () for r in range(len(self.terms))}

@@ -1,29 +1,24 @@
 """Banded ("DIA-of-offsets") stencil matrices with sparse interchange.
 
-TPU-native analogue of the reference's ``StencilMatrix`` (SURVEY.md §2 C3,
+Analogue of the reference's ``StencilMatrix`` (SURVEY.md §2 C3,
 [recall:high]): for each grid multi-index ``i`` the ``(2p+1)^d`` band of
 nonzeros is stored by diagonal offset.  This is the *primary* operator
 format (BASELINE.json:5 "stored as banded/BSR"); CSR/COO are
 interchange/oracle formats only (SURVEY.md §7.0, §4).
 
 Storage layout: the canonical array is **offset-major** ``band_t`` of shape
-``band_shape + npts`` — ``band_t[k, i]`` multiplies ``x[i + k - p]``.  This
-is the TPU-friendly (DIA-style) layout: each coefficient plane is a
-contiguous grid-shaped array, so both the XLA shifted-MAC path and the
-Pallas kernels stream it at full bandwidth (grid-major puts the 49/343
-offsets in the lane dim, which Mosaic scalarizes — measured compile stall).
+``band_shape + npts`` — ``band_t[k, i]`` multiplies ``x[i + k - p]``.  Each
+coefficient plane is a contiguous grid-shaped array, so the shifted-MAC
+SpMV streams the band with unit-stride reads (see poms_tpu/ops/spmv.py).
 The grid-major view ``band[i, k]`` is exposed as a property for
 construction and host-side interchange only.
 
 Conversions run on host in numpy (setup/test-time only).  The hot path is
-:meth:`StencilMatrix.dot` → :func:`poms_tpu.ops.spmv.spmv_banded_jnp`
-(and its Pallas twin).
+:meth:`StencilMatrix.dot` → :func:`poms_tpu.ops.spmv.spmv_banded_jnp`.
 """
 from __future__ import annotations
 
 import itertools
-import math
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -56,12 +51,11 @@ class StencilMatrix:
     and :meth:`validate_boundary` checks it.
     """
 
-    __slots__ = ("space", "band_t", "_pk_arrays", "_pk_meta", "_fold2")
+    __slots__ = ("space", "band_t")
 
     def __init__(self, space: StencilVectorSpace,
                  band: jnp.ndarray | None = None, *,
-                 band_t: jnp.ndarray | None = None,
-                 _pk_arrays=None, _pk_meta=None, _fold2=None):
+                 band_t: jnp.ndarray | None = None):
         self.space = space
         nd = space.ndim
         if band_t is not None:
@@ -71,15 +65,6 @@ class StencilMatrix:
         else:
             self.band_t = jnp.zeros(space.band_shape + space.npts,
                                     space.dtype)
-        # optional v2-engine pre-packed band (ensure_packed_v2): arrays
-        # ride the pytree so jitted solve loops see the ONE-TIME relayout
-        # as an input, never as traced per-apply work (measured 14.3 ms/
-        # apply when inlined — BASELINE.md round-3 notes)
-        self._pk_arrays = _pk_arrays
-        self._pk_meta = _pk_meta
-        # optional lane-folded band (ensure_folded2) — same pytree-riding
-        # setup-relayout pattern as _pk_arrays
-        self._fold2 = _fold2
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -107,70 +92,11 @@ class StencilMatrix:
         return _to_grid_major(self.band_t, self.space.ndim)
 
     # -- linear-operator interface -----------------------------------------
-    def ensure_packed_v2(self) -> "StencilMatrix":
-        """Pre-pack the band for the v2 Pallas engine (pack_band_v2) —
-        production plumbing for ``POMS_TPU_SPMV=v2`` (VERDICT r3 missing
-        #7): call at SETUP time (hierarchy build, hierarchy cast); no-op
-        unless the v2 engine is selected and usable, or under a trace
-        (packing inside jit would re-run the relayout per apply)."""
-        import os
-
-        if (os.environ.get("POMS_TPU_SPMV") != "v2"
-                or self.space.ndim != 3
-                or self._pk_arrays is not None
-                or not _ops.use_pallas(self.band_t.dtype, 3,
-                                       self.space.npts)
-                or isinstance(self.band_t, jax.core.Tracer)):
-            return self
-        from poms_tpu.ops.pallas.spmv import pack_band_v2
-
-        pk = pack_band_v2(self.band_t, self.space.npts, self.space.pads)
-        self._pk_arrays = (pk["blk"], pk["diag"])
-        self._pk_meta = (pk["tile"], pk["N"], pk["npts"], pk["pads"])
-        return self
-
-    def ensure_folded2(self) -> "StencilMatrix":
-        """Pre-fold the band for the lane-folded small-lane 3D path
-        (ops/spmv.py::spmv_banded_fold2_jnp — the 64³ lane-padding close,
-        VERDICT r4 missing #3): 70% SoL vs 12–14% unfolded at 64³.  Call
-        at SETUP time; no-op off-TPU (force with POMS_TPU_FOLD2=1 for
-        CPU equivalence tests), for unfoldable shapes, or under a trace."""
-        import os
-
-        from poms_tpu.ops.dispatch import use_fold2
-
-        if (self._fold2 is not None
-                or isinstance(self.band_t, jax.core.Tracer)
-                or not use_fold2(self.band_t.dtype, self.space.npts,
-                                 folded="probe")):
-            return self
-        from poms_tpu.ops.spmv import fold2_band
-
-        self._fold2 = fold2_band(self.band_t, self.space.npts)
-        return self
-
-    @property
-    def folded2(self):
-        """The fold2_band array if :meth:`ensure_folded2` ran, else None."""
-        return self._fold2
-
-    @property
-    def packed_v2(self):
-        """The pack_band_v2 dict if :meth:`ensure_packed_v2` ran, else
-        None (dispatch treats None as 'no pre-pack')."""
-        if self._pk_arrays is None:
-            return None
-        blk, diag = self._pk_arrays
-        tile, N, npts, pads = self._pk_meta
-        return {"blk": blk, "diag": diag, "tile": tile, "N": N,
-                "npts": npts, "pads": pads}
-
     def dot(self, v: StencilVector) -> StencilVector:
         """y = A v. Refreshes ghosts, then the banded SpMV (SURVEY.md §3.4)."""
         vg = v.update_ghost_regions()
         out_int = _ops.spmv(self.band_t, vg.data, self.space.npts,
-                            self.space.pads, packed=self.packed_v2,
-                            folded=self._fold2)
+                            self.space.pads)
         return StencilVector.from_interior(self.space, out_int)
 
     def __matmul__(self, v: StencilVector) -> StencilVector:
@@ -332,15 +258,11 @@ class StencilMatrix:
 
     # -- pytree protocol ----------------------------------------------------
     def tree_flatten(self):
-        return ((self.band_t, self._pk_arrays, self._fold2),
-                (self.space, self._pk_meta))
+        return (self.band_t,), self.space
 
     @classmethod
-    def tree_unflatten(cls, aux, children):
-        space, pk_meta = aux
-        band_t, pk_arrays, fold2 = children
-        return cls(space, band_t=band_t, _pk_arrays=pk_arrays,
-                   _pk_meta=pk_meta, _fold2=fold2)
+    def tree_unflatten(cls, space, children):
+        return cls(space, band_t=children[0])
 
     def __repr__(self):
         return (f"StencilMatrix(npts={self.space.npts}, "

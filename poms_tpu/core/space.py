@@ -12,7 +12,7 @@ run on one chip or sharded over a mesh.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 import jax.numpy as jnp
@@ -45,8 +45,7 @@ class StencilVectorSpace:
     periodic : tuple[bool, ...]
         Periodicity per dimension.  Non-periodic ghosts are zero (Dirichlet-
         eliminated operators never reference outside the interior).
-    dtype : jnp dtype for field data (default float64; on TPU f64 is
-        XLA-emulated — see BASELINE.md).
+    dtype : jnp dtype for field data (default float64).
     """
 
     npts: Tuple[int, ...]

@@ -46,8 +46,7 @@ def cycle(levels: List[Level], l: int, x: StencilVector, b: StencilVector,
     sp = level.A.space
     if hasattr(level.A, "band_t"):  # fused residual kernel
         r_int = _ops.residual(level.A.band_t, x.update_ghost_regions().data,
-                              b.interior, sp.npts, sp.pads,
-                              packed=getattr(level.A, "packed_v2", None))
+                              b.interior, sp.npts, sp.pads)
     else:
         r_int = b.interior - level.A.dot(x).interior
     b_c_int = apply_transfer(level.restrict, r_int)

@@ -116,8 +116,7 @@ class MultigridSolver:
         harness where per-cycle host round-trips would pollute timings.
 
         The jitted runner is cached per (tol, maxiter) — a fresh jax.jit
-        closure per call would re-trace on EVERY solve (the trap measured
-        in mg/mixed.py: 0.47 s/iter of pure retrace; VERDICT r4 weak #3).
+        closure per call would re-trace on EVERY solve.
         """
         b = b if b is not None else self.problem.b
         levels, cfg = self.levels, self.cfg

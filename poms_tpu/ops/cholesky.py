@@ -1,10 +1,10 @@
 """Coarsest-grid direct solve (SURVEY.md §2 C11).
 
 The reference delegates to scipy's SuperLU/LAPACK [recall:low]; the
-TPU-native equivalent factors the (tiny) coarsest Galerkin operator once at
+device equivalent factors the (tiny) coarsest Galerkin operator once at
 setup with a dense Cholesky and back-substitutes on device each cycle —
 two triangular solves, no host round-trip.  An f64 path is used throughout
-(XLA-emulated on TPU; the coarsest system is small so this is cheap).
+(the coarsest system is small, so this is cheap).
 A scipy sparse-LU parity path lives in :mod:`poms_tpu.oracle`.
 """
 from __future__ import annotations

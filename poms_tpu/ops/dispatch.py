@@ -1,174 +1,48 @@
-"""Implementation dispatch: Pallas TPU kernels vs jnp reference.
+"""Banded-operator kernels used by the matrices, smoothers and cycles.
 
-Selection policy (overridable with env ``POMS_TPU_IMPL=jnp|pallas``):
-use the Pallas kernels when running on a TPU backend with a
-Mosaic-supported dtype (f32/bf16, ≤3D); otherwise the jnp reference path
-(which is also the f64 path — SURVEY.md §7.2.1).
-
-All entry points take the **offset-major** band (``band_t[k..., i...]`` —
-see poms_tpu/core/matrix.py for why this is the TPU-native layout).
+Each entry point is a plain ``jnp`` body that XLA fuses into one loop per
+call: the shifted multiply-adds of :mod:`poms_tpu.ops.spmv` plus the
+elementwise update around them.  All take the **offset-major** band
+(``band_t[k..., i...]`` — see poms_tpu/core/matrix.py).
 """
 from __future__ import annotations
 
-import os
-
-import jax
 import jax.numpy as jnp
 
 from poms_tpu.ops.spmv import spmv_banded_jnp, spmv_offdiag_jnp
 
-__all__ = ["use_pallas", "use_fold2", "spmv", "residual", "jacobi",
-           "rbgs_color"]
-
-_PALLAS_DTYPES = (jnp.dtype("float32"), jnp.dtype("bfloat16"))
+__all__ = ["spmv", "residual", "jacobi", "rbgs_color"]
 
 
-def use_pallas(dtype, ndim: int, npts=None) -> bool:
-    """Pallas only where it measurably wins (corrected K/2K timing):
-
-    - 3D 343-term stencil with full lanes: v1 at 92.5% SoL at 128³ p3.
-      Small-lane 3D goes to the fold2/jnp path (`use_fold2`).
-    - 1D at n ≥ 2²²: the planked kernel reaches 74–76% SoL (2²²/2²³)
-      where XLA's shifted-MAC sits at 12–13%; below the crossover the
-      fixed plank overhead loses (2²⁰: jnp 288 µs vs Pallas 630 µs) —
-      round-5 crossover ladder in BASELINE.md.
-    - 2D stays jnp: XLA's own fusion wins (2048² p3: 1.10 ms / 95.3% SoL
-      vs Pallas 3.76 ms).
-
-    The unlisted Pallas paths remain available via
-    ``POMS_TPU_IMPL=pallas`` and stay parity-tested."""
-    force = os.environ.get("POMS_TPU_IMPL")
-    if force == "jnp":
-        return False
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    if force == "pallas":
-        return jnp.dtype(dtype) in _PALLAS_DTYPES and 1 <= ndim <= 3
-    if not (on_tpu and jnp.dtype(dtype) in _PALLAS_DTYPES):
-        return False
-    if ndim == 1:
-        return npts is not None and npts[0] >= (1 << 22)
-    lanes_ok = npts is None or npts[-1] >= 96
-    return ndim == 3 and lanes_ok
+def _interior(x_pad, npts, pads):
+    return x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
 
 
-def use_fold2(dtype, npts, folded) -> bool:
-    """Lane-folded small-lane 3D path (ops/spmv.py, VERDICT r4 #3).
-
-    Active when a pre-folded band is present (``folded`` — built once at
-    setup by StencilMatrix.ensure_folded2) and the grid is the small-lane
-    3D case the fold exists for: npts[-1] < 96 (lane padding wastes ≥25%
-    of the 128 lanes; odd npts[1] pads a zero row — see fold2_band).
-    Measured 64³ p3 f32: 0.631 ms =
-    70.0% SoL vs 13.9% (Pallas v1) / 12.1% (plain jnp).  ``folded="probe"``
-    asks whether the fold SHOULD be built: yes on TPU (or when forced
-    with POMS_TPU_FOLD2=1 — CPU equivalence tests), unless disabled with
-    POMS_TPU_FOLD2=0.
-    """
-    force = os.environ.get("POMS_TPU_FOLD2")
-    if force == "0" or folded is None:
-        return False
-    shape_ok = (len(npts) == 3 and npts[-1] < 96
-                and jnp.dtype(dtype) in _PALLAS_DTYPES)
-    if not shape_ok:
-        return False
-    if folded == "probe":
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
-        return on_tpu or force == "1"
-    return True
-
-
-def use_pallas_kron(npts, pads, dtype) -> bool:
-    """Fused Pallas kron-apply dispatch (ops/pallas/kron.py) — OPT-IN via
-    ``POMS_TPU_KRON=pallas``.  Measured round 4 at 128³ p3: the kernel
-    wins standalone (0.505 ms vs 0.70 ms XLA — the whole contraction
-    chain stays in VMEM) but LOSES inside the solve (22.1 vs 13.0 ms/
-    iter): a pallas_call is a fusion barrier, and XLA had been fusing the
-    kron contractions into the surrounding smoother arithmetic.  The XLA
-    path therefore stays the production default; the kernel remains
-    in-tree, parity-tested, as the measured record."""
-    if os.environ.get("POMS_TPU_KRON") != "pallas":
-        return False
-    from poms_tpu.ops.pallas.kron import kron_pallas_supported
-
-    return kron_pallas_supported(npts, pads, dtype)
-
-
-def spmv(band_t, x_pad, npts, pads, packed=None, folded=None):
-    """``packed``: optional pack_band_v2 dict (v2 engine, 3D) — built once
-    at operator setup (StencilMatrix.ensure_packed_v2) and threaded here so
-    jitted loops never re-run the band relayout (VERDICT r3 missing #7).
-    ``folded``: optional fold2_band array (small-lane 3D lane fold,
-    StencilMatrix.ensure_folded2) — same setup-relayout pattern."""
-    if use_fold2(band_t.dtype, npts, folded):
-        from poms_tpu.ops.spmv import spmv_banded_fold2_jnp
-
-        return spmv_banded_fold2_jnp(folded, x_pad, npts, pads)
-    if use_pallas(band_t.dtype, len(npts), npts):
-        from poms_tpu.ops.pallas.spmv import spmv_banded_pallas
-
-        return spmv_banded_pallas(band_t, x_pad, npts, pads, packed=packed)
+def spmv(band_t, x_pad, npts, pads):
+    """y = A·x on the interior, ghosts of ``x_pad`` already up to date."""
     return spmv_banded_jnp(band_t, x_pad, npts, pads)
 
 
-def residual(band_t, x_pad, b_int, npts, pads, packed=None, folded=None):
-    """r = b − A·x (fused on TPU)."""
-    if use_fold2(band_t.dtype, npts, folded):
-        from poms_tpu.ops.spmv import spmv_banded_fold2_jnp
-
-        return b_int - spmv_banded_fold2_jnp(folded, x_pad, npts, pads)
-    if use_pallas(band_t.dtype, len(npts), npts):
-        from poms_tpu.ops.pallas.spmv import residual_fused_pallas
-
-        return residual_fused_pallas(band_t, x_pad, b_int, npts, pads,
-                                     packed=packed)
+def residual(band_t, x_pad, b_int, npts, pads):
+    """r = b − A·x."""
     return b_int - spmv_banded_jnp(band_t, x_pad, npts, pads)
 
 
-def jacobi(band_t, x_pad, b_int, omega, npts, pads, packed=None,
-           folded=None):
-    """x' = x + ω (b − A x)/diag  (single fused pass on TPU)."""
-    if use_fold2(band_t.dtype, npts, folded):
-        from poms_tpu.ops.spmv import spmv_banded_fold2_jnp
-
-        diag = band_t[tuple(pads)]
-        x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
-        Ax = spmv_banded_fold2_jnp(folded, x_pad, npts, pads)
-        return x_int + omega * (b_int - Ax) / diag
-    if use_pallas(band_t.dtype, len(npts), npts):
-        from poms_tpu.ops.pallas.spmv import jacobi_fused_pallas
-
-        return jacobi_fused_pallas(band_t, x_pad, b_int, omega, npts, pads,
-                                   packed=packed)
+def jacobi(band_t, x_pad, b_int, omega, npts, pads):
+    """x' = x + ω (b − A x)/diag."""
     diag = band_t[tuple(pads)]
-    x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
     Ax = spmv_banded_jnp(band_t, x_pad, npts, pads)
-    return x_int + omega * (b_int - Ax) / diag
+    return _interior(x_pad, npts, pads) + omega * (b_int - Ax) / diag
 
 
-def rbgs_color(band_t, x_pad, b_int, omega, color, npts, pads, starts=None,
-               packed=None, folded=None):
+def rbgs_color(band_t, x_pad, b_int, omega, color, npts, pads, starts=None):
     """One RB-GS color phase: masked hybrid-GS update on color-``color``
-    points (fused Pallas kernel on TPU — see rbgs_color_pallas)."""
-    if use_fold2(band_t.dtype, npts, folded):
-        from poms_tpu.mg.smoother import color_mask
-        from poms_tpu.ops.spmv import spmv_banded_fold2_jnp
-
-        diag = band_t[tuple(pads)]
-        x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
-        s_off = spmv_banded_fold2_jnp(folded, x_pad, npts,
-                                      pads) - diag * x_int
-        gs = (b_int - s_off) / diag
-        mask = color_mask(npts, color, starts)
-        return jnp.where(mask, (1.0 - omega) * x_int + omega * gs, x_int)
-    if use_pallas(band_t.dtype, len(npts), npts):
-        from poms_tpu.ops.pallas.spmv import rbgs_color_pallas
-
-        return rbgs_color_pallas(band_t, x_pad, b_int, omega, color, npts,
-                                 pads, starts=starts, packed=packed)
+    points (``starts``: the block's global offsets, which fix the colors
+    under a sharded grid)."""
     from poms_tpu.mg.smoother import color_mask
 
     diag = band_t[tuple(pads)]
-    x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
+    x_int = _interior(x_pad, npts, pads)
     s = spmv_offdiag_jnp(band_t, x_pad, npts, pads)
     gs = (b_int - s) / diag
     mask = color_mask(npts, color, starts)

@@ -1,24 +1,20 @@
-"""Banded stencil SpMV — jnp reference implementation.
+"""Banded stencil SpMV — the jnp implementation.
 
-The TPU-idiomatic formulation (SURVEY.md §7.0): a tensor-product B-spline
-stencil matrix is a dense small-band array and stencil SpMV is a sum of
-``(2p+1)^d`` *shifted dense multiply-adds* over the ghost-padded input
-vector:
+A tensor-product B-spline stencil matrix is a dense small-band array, and
+stencil SpMV is a sum of ``(2p+1)^d`` *shifted dense multiply-adds* over
+the ghost-padded input vector (SURVEY.md §7.0):
 
     out[i] = sum_k  band_t[k, i] * x_pad[i + k]          (k in [0, 2p]^d)
 
 which XLA fuses into a single streaming loop — no gather/scatter, pure
-VPU/HBM work.  This file is the jnp reference used as the correctness oracle
-for the Pallas kernels in :mod:`poms_tpu.ops.pallas` (SURVEY.md §2 C5: the
-reference's pyccel-generated Fortran ``stencil_dot_1d/2d/3d`` kernels).
+memory-bound streaming.  It plays the part of the reference's
+pyccel-generated Fortran ``stencil_dot_1d/2d/3d`` kernels (SURVEY.md §2 C5).
 
 Layout note — **offset-major** (``band_t[k..., i...]``, the DIA layout): the
-operational band layout puts the (2p+1)^d offset indices in the *major*
-dims so that each coefficient plane ``band_t[k]`` is a contiguous
-grid-shaped array whose minor (lane) dim is a grid dim.  The grid-major
-layout (``band[i..., k...]``) makes every coefficient read a stride-(2p+1)^d
-gather along lanes, which Mosaic scalarizes (compile stall measured this
-round) and which caps XLA at a fraction of HBM bandwidth.
+(2p+1)^d offset indices are the *major* dims, so each coefficient plane
+``band_t[k]`` is a contiguous grid-shaped array and every read of the band
+is unit-stride.  The grid-major layout (``band[i..., k...]``) would make
+every coefficient read a stride-(2p+1)^d gather.
 :class:`poms_tpu.core.matrix.StencilMatrix` stores ``band_t`` and exposes
 grid-major ``.band`` only as a construction/interchange view.
 """
@@ -31,8 +27,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-__all__ = ["spmv_banded_jnp", "spmv_offdiag_jnp", "diagonal_band_index",
-           "fold2_band", "spmv_banded_fold2_jnp"]
+__all__ = ["spmv_banded_jnp", "spmv_offdiag_jnp", "diagonal_band_index"]
 
 
 def diagonal_band_index(pads: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -86,110 +81,4 @@ def spmv_offdiag_jnp(band_t: jnp.ndarray, x_pad: jnp.ndarray,
         out = term if out is None else out + term
     if out is None:  # pads all zero: purely diagonal matrix
         out = jnp.zeros(npts, band_t.dtype)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Lane-folded 3D SpMV (the 64³ lane-padding close — VERDICT r4 missing #3)
-# ---------------------------------------------------------------------------
-#
-# Small-lane 3D grids (npts[2] < 128) waste vector lanes: the TPU's (8,128)
-# tiling pads every 64-wide row to 128 lanes, and since the band is 343/345
-# of the streamed bytes, the whole kernel runs at ~2× the necessary traffic
-# (measured 12–14% SoL at 64³ for BOTH jnp and Pallas v1; the (64,32,128)
-# folded-geometry probe measured the achievable ceiling at 88.9%).
-#
-# The fix needs NO new Pallas kernel.  Fold pairs of j-rows into the lane
-# dim (j = 2j' + s → lane c = s·n3 + l):
-#
-# - every array indexed at OUTPUT positions (band, out, b, diag) folds by a
-#   pure reshape — j' is the j-major bits and s the minor bit, and (s, l)
-#   merge contiguously into the 2·n3-wide lane dim;
-# - the STENCIL READS of x stay uniform shifted-MACs through two families
-#   of fold views: XS (fold phase 0: rows 2j'+s) for even j-offsets and
-#   XSW (fold phase 1: rows 2j'+1+s) for odd j-offsets.  For an odd offset
-#   δ, reading XSW at j'-shift (δ−1)/2 yields x[i, 2j'+s+δ, ·] for BOTH
-#   halves s∈{0,1} simultaneously — the parity bookkeeping collapses into
-#   which of the two phase views is read and at which j' shift.
-#
-# XLA then streams a dense 128-lane band with plain fused multiply-adds —
-# the same engine that runs 2D at 95.3% SoL.  The band fold is a one-time
-# physical relayout (StencilMatrix.ensure_folded2, mirroring
-# ensure_packed_v2); x's 2·(2p+1) fold views are rebuilt per apply and are
-# ~1% of the band traffic.
-
-
-def fold2_band(band_t: jnp.ndarray, npts: Tuple[int, ...]) -> jnp.ndarray:
-    """Pre-fold an offset-major 3D band: (w..., n1, n2, n3) →
-    (w..., n1, ⌈n2/2⌉, 2·n3).  One-time setup relayout (the reshape is a
-    view semantically but a (8,128)-retile physically on TPU).
-
-    Odd n2 (every dyadic degree-3 space: npts = n_el+1) pads one ZERO
-    coefficient row — its output row is identically zero and gets cropped
-    by :func:`spmv_banded_fold2_jnp`, so reads under it are harmless.
-    """
-    n1, n2, n3 = npts
-    w = band_t.shape[:3]
-    if n2 % 2:
-        band_t = jnp.pad(band_t, [(0, 0)] * 3 + [(0, 0), (0, 1), (0, 0)])
-        n2 += 1
-    return band_t.reshape(w + (n1, n2 // 2, 2 * n3))
-
-
-@partial(jax.jit, static_argnames=("npts", "pads"))
-def spmv_banded_fold2_jnp(band_f: jnp.ndarray, x_pad: jnp.ndarray,
-                          npts: Tuple[int, ...],
-                          pads: Tuple[int, ...]) -> jnp.ndarray:
-    """3D banded SpMV on the lane-folded layout; exact same result as
-    :func:`spmv_banded_jnp` (pinned by tests/test_stencil.py).
-
-    ``band_f``: the :func:`fold2_band` pre-folded band.  ``x_pad``: the
-    ordinary ghost-padded input (folding happens on the fly — x is ~1/345
-    of the traffic).
-    """
-    n1, n2, n3 = npts
-    p1, p2, p3 = pads
-    crop = None
-    if n2 % 2:
-        # odd n2: treat as an (n2+1)-row problem whose last row has a zero
-        # band (fold2_band); one zero row appended BEYOND the j halo keeps
-        # every in-range stencil read identical to the unpadded semantics
-        # (valid outputs only read rows ≤ n2−1+p2, which sit untouched)
-        x_pad = jnp.pad(x_pad, [(0, 0), (0, 1), (0, 0)])
-        crop, n2 = n2, n2 + 1
-    n2f = n2 // 2
-    w1, w2, w3 = 2 * p1 + 1, 2 * p2 + 1, 2 * p3 + 1
-    e = p2 // 2                   # XS j'-halo (even offsets δ: q = δ/2)
-    o_lo = (p2 + 1) // 2          # XSW j'-halo (odd δ: q = (δ−1)/2)
-    o_hi = max(0, (p2 - 1) // 2)
-    I = n1 + 2 * p1
-    # fold-phase views, one per lane offset k3 (cheap: slices + reshapes
-    # over the small x array; they fuse into the MAC consumers)
-    XS, XW = [], []
-    for k3 in range(w3):
-        base = p2 - 2 * e
-        cnt = 2 * (n2f + 2 * e)
-        xs = jax.lax.slice(x_pad, (0, base, k3), (I, base + cnt, k3 + n3))
-        XS.append(xs.reshape(I, n2f + 2 * e, 2 * n3))
-        baseW = p2 + 1 - 2 * o_lo
-        cntW = 2 * (n2f + o_lo + o_hi)
-        xw = jax.lax.slice(x_pad, (0, baseW, k3),
-                           (I, baseW + cntW, k3 + n3))
-        XW.append(xw.reshape(I, n2f + o_lo + o_hi, 2 * n3))
-    out = None
-    for k1 in range(w1):
-        for k2 in range(w2):
-            d2 = k2 - p2
-            if d2 % 2 == 0:
-                V, jo = XS, e + d2 // 2
-            else:
-                V, jo = XW, o_lo + (d2 - 1) // 2
-            for k3 in range(w3):
-                win = jax.lax.slice(V[k3], (k1, jo, 0),
-                                    (k1 + n1, jo + n2f, 2 * n3))
-                term = band_f[k1, k2, k3] * win
-                out = term if out is None else out + term
-    out = out.reshape((n1, n2, n3))
-    if crop is not None:
-        out = out[:, :crop, :]
     return out

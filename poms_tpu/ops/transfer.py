@@ -1,7 +1,7 @@
 """Restriction / prolongation application — banded per-axis gathers.
 
 SURVEY.md §2 C8: the reference applies knot-insertion transfer operators as
-banded matrices.  TPU-native formulation: a tensor-product transfer
+banded matrices.  Here a tensor-product transfer
 P_d = ⊗_a P_1^(a) is applied one axis at a time; each 1D application is a
 small static sum of weighted gathers
 

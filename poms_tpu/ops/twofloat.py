@@ -1,17 +1,16 @@
 """Two-float (double-word f32) arithmetic for high-precision residuals.
 
 SURVEY.md §7.2.1 names this the #1 risk item: the headline tolerance
-(‖r‖ ≤ 1e-10, BASELINE.json:2) needs ~>40 mantissa bits, TPU hardware has
-24 (f32), and XLA's f64 emulation is the measured dominant cost of the
-mixed-precision iteration (BASELINE.md round-1 row 5).  This module
+(‖r‖ ≤ 1e-10, BASELINE.json:2) needs ~>40 mantissa bits, f32 has 24, and
+the system was first built for hardware without fast f64.  This module
 implements the standard error-free-transformation (EFT) toolbox —
 Dekker/Knuth two_sum / two_prod and double-word add/mul (Joldes, Muller &
 Popescu, "Tight and rigorous error bounds for basic building blocks of
 double-word arithmetic", ACM TOMS 2017) — on f32 pairs ``(hi, lo)`` with
 ``hi + lo`` representing a ~48-bit-mantissa value (|lo| ≤ ulp(hi)/2).
 
-All functions are elementwise jnp code: on TPU they compile to plain VPU
-f32 ops (no f64 emulation anywhere).  XLA fma contraction is a measured
+All functions are elementwise jnp code that compiles to plain f32
+arithmetic (no f64 anywhere).  XLA fma contraction is a measured
 HAZARD for EFTs, not a help — see the compiler-safety note below: the
 toolbox is written in the contraction-immune exact-partial-products form
 so any contraction the compiler applies is value-preserving.
@@ -48,20 +47,38 @@ _SPLIT = jnp.float32(4097.0)  # Dekker split constant for f32: 2^12 + 1
 # any fma contraction is value-preserving by construction, and sums are
 # protected only by the (float-semantics-preserving) HLO pipeline, which
 # does not reassociate.  Pinned by tests/test_twofloat.py::
-# test_eft_exact_under_jit_with_broadcast.
+# test_eft_exact_under_jit_with_broadcast, whose checks also pass when run
+# on an H100 through XLA:GPU.
+#
+# A second hazard is XLA:GPU's own: it drops a convert pair f64 → f32 →
+# f64 as "excess precision", so the textbook split lo = f32(x − f64(f32 x))
+# is 0 under jit on the card.  That lost b's low word (a dw solve then
+# converged to f32(b), and its residual read up to 5× below the true one
+# at 64³) and rounded α to f32 in dw-PCG.  split_f64 therefore rounds on
+# the bit pattern, and no function here converts a narrowed value back.
 
 
 def split_f64(x) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Split an f64 array into a double-word f32 pair.
 
-    hi = f32(x); lo = f32(x − hi).  |x − (hi+lo)| ≤ 2⁻⁴⁹|x|: a double-word
-    f32 carries ~49 mantissa bits, so the bottom ~4 bits of an f64 are
-    dropped — far below the 1e-10 target.  (Setup-time only — the point of
-    the module is that everything *after* this is f32.)
+    hi = x rounded to 24 significant bits; lo = f32(x − hi).
+    |x − (hi+lo)| ≤ 2⁻⁴⁹|x| and |lo| ≤ ulp(hi)/2: a double-word f32
+    carries ~49 mantissa bits, so the bottom ~4 bits of an f64 are dropped
+    — far below the 1e-10 target.  (Values below f32's normal range lose
+    up to 2⁻¹⁴⁹ more.)
+
+    hi is rounded on x's bit pattern (add half of the lowest kept bit, then
+    clear the 29 bits below it), never as ``f64(f32(x))``: XLA:GPU removes
+    that convert pair as excess precision, which makes ``x − hi`` zero and
+    loses lo entirely (module note).  x − hi is exact in f64.
     """
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(jnp.float64)).astype(jnp.float32)
-    return hi, lo
+    import jax
+
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint64)
+    hi64 = jax.lax.bitcast_convert_type(
+        (bits + jnp.uint64(0x10000000)) & jnp.uint64(0xFFFFFFFFE0000000),
+        jnp.float64)
+    return hi64.astype(jnp.float32), (x - hi64).astype(jnp.float32)
 
 
 def merge_f64(hi, lo):
@@ -204,8 +221,7 @@ def residual_kron_df(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh, xl,
     double-word RHS and iterate.  Mirrors the shared-partial-product
     application of core/kron.py but in ~48-bit precision — the structure
     sharing is identical, so the flop count is the Kronecker O(n·Σ(2p+1))
-    times the ~10× double-word overhead, still far below XLA's f64
-    emulation (BASELINE.md row 5).
+    times the ~10× double-word overhead.
 
     ``labels``: optional precomputed sharing structure, labels[a][r] (see
     KroneckerSumOperator._band_labels).  Pass it whenever ``terms_df`` are
@@ -253,11 +269,10 @@ def _dw_sum_tree_last(sh, sl):
     """Pairwise-tree sum along the LAST axis of (…, n) dw arrays → (…,) f64.
 
     The tree pairs the FIRST HALF against the SECOND HALF each step:
-    contiguous slices, which TPU handles as plain vector adds — an
-    even/odd ``[0::2]`` pairing forces a lane-interleaving relayout per
-    level and was measured at 62 ms per norm at 128³ (≈ 2/3 of the whole
-    mixed-solve iteration; round-4 attr_iter probe).  Log-depth keeps the
-    error ~ulp_dw · log n; the f64 cast at the end is O(1) scalar work.
+    contiguous slices, so each level is a plain vector add — an even/odd
+    ``[0::2]`` pairing forces a strided relayout per level.  Log-depth
+    keeps the error ~ulp_dw · log n; the f64 cast at the end is O(1)
+    scalar work.
     """
     while sh.shape[-1] > 1:
         m = sh.shape[-1]
@@ -284,10 +299,10 @@ def dw_dot_stack(pairs):
 
     ``pairs``: sequence of (xh, xl, yh, yl) same-shape arrays.  Each tree
     level of :func:`dw_sum_tree` is latency- (not bandwidth-) bound on the
-    small end — log₂(2M) ≈ 21 dependent vector ops ≈ 1.2 ms at 128³ — so
-    k separate dots cost k·tree while the stacked (k, n) tree costs ~one
-    (the per-level work grows k×, the level count doesn't).  Used by the
-    PCG step to fuse the ρ_new and β dots (VERDICT r4 missing #6).
+    small end — log₂(2M) ≈ 21 dependent vector ops at 128³ — so k separate
+    dots cost k·tree while the stacked (k, n) tree costs ~one (the
+    per-level work grows k×, the level count doesn't).  Used by the PCG
+    step to fuse the ρ_new and β dots.
     """
     ph = [None] * len(pairs)
     pl = [None] * len(pairs)

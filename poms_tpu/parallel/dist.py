@@ -39,15 +39,13 @@ from poms_tpu.mg.hierarchy import build_hierarchy
 from poms_tpu.mg.solver import SolveResult
 from poms_tpu.models.bspline import (prolongation_interior_1d,
                                      prolongation_periodic_1d)
-from poms_tpu.models.poisson import PoissonProblem
-from poms_tpu.ops.transfer import bands_from_dense
 from poms_tpu.ops import dispatch as _ops
 from poms_tpu.parallel.halo import (HaloSpec, dist_norm2, dist_spmv,
                                     local_starts, pad_and_exchange)
 from poms_tpu.parallel.kron import (dist_dw_norm2, dist_kron_apply,
                                     dist_kron_diag, dist_kron_residual_df,
                                     pad_band_1d_identity)
-from poms_tpu.parallel.transfers import (DistTransfer1D, build_dist_transfer,
+from poms_tpu.parallel.transfers import (build_dist_transfer,
                                          dist_apply_transfer)
 
 __all__ = ["DistributedMG"]
@@ -101,28 +99,25 @@ class DistributedMG:
                  cfg: CycleConfig = CycleConfig(), devices=None,
                  dist_levels: int | str = "auto", overlap: bool = True,
                  mixed: bool = False, operator: str = "banded",
-                 mixed_residual: str = "auto", inner_cycles: int = 1):
+                 mixed_residual: str = "f64", inner_cycles: int = 1):
         # ``overlap``: emit halo ppermutes independent of the interior SpMV
         # so XLA can overlap communication with compute (SURVEY.md §7.1.7);
         # results are equal to the non-overlapped path to f64 roundoff.
         # ``mixed``: sharded defect correction (SURVEY.md §7.2.1 composed
-        # with configs 4/5 — VERDICT.md round-1 missing #5): the V/W-cycle
-        # runs on an f32 cast of the sharded hierarchy (Pallas kernels on
-        # TPU) inside an f64 residual loop, with semantics identical to the
-        # serial :class:`poms_tpu.mg.mixed.MixedPrecisionMG` step.
+        # with configs 4/5): the V/W-cycle runs on an f32 cast of the
+        # sharded hierarchy inside an f64 residual loop, with semantics
+        # identical to the serial :class:`poms_tpu.mg.mixed.MixedPrecisionMG`
+        # step.
         if num_levels < 2:
             raise ValueError("DistributedMG needs >= 2 levels")
         if mixed and problem.b.interior.dtype != jnp.dtype(jnp.float64):
             # check a MATERIALIZED array, not space metadata: with
             # jax_enable_x64 off, the space still *says* float64 while every
             # buffer silently truncated to f32 — the exact failure mode this
-            # guard exists to reject (ADVICE r2 / MULTICHIP_r02 regression)
+            # guard exists to reject
             raise ValueError(
                 "mixed=True needs f64 buffers; got "
                 f"{problem.b.interior.dtype} (is jax_enable_x64 set?)")
-        if mixed_residual == "auto":
-            mixed_residual = ("twofloat" if (mixed and operator == "kron")
-                              else "f64")
         if mixed_residual not in ("f64", "twofloat"):
             raise ValueError(f"mixed_residual={mixed_residual!r}")
         if mixed_residual == "twofloat" and operator != "kron":
@@ -397,7 +392,7 @@ class DistributedMG:
                     x_loc = jnp.where(
                         mask, (1.0 - omega) * x_loc + omega * gs, x_loc)
                 return x_loc
-            # banded: fused per-color kernel (Pallas on TPU)
+            # banded: one masked pass per color
             for color in (0, 1):
                 x_pad = pad_and_exchange(x_loc, spec)
                 x_loc = _ops.rbgs_color(op_loc, x_pad, b_loc, omega,
@@ -685,53 +680,46 @@ class DistributedMG:
             residuals.append(rn)
             it += 1
             converged = rn <= tol
-        x_glob = merge_f64(xh, xl)
-        x_int = np.asarray(x_glob)[tuple(slice(0, n) for n in self.npts)]
-        x = StencilVector.from_interior(self.problem.space, x_int)
+        x = StencilVector.from_interior(self.problem.space,
+                                        self.unpad(merge_f64(xh, xl)))
         return SolveResult(x=x, residuals=residuals, iterations=it,
                            converged=converged, wall_times=wall)
 
-    def solve_compiled(self, b: StencilVector = None, tol: float = 1e-10,
-                       maxiter: int = 50):
-        """Fully-jitted sharded solve (``lax.while_loop`` around the
-        shard_map step): ONE dispatch + ONE scalar fetch per solve — the
-        per-cycle ``float(rn)`` host sync of :meth:`solve` costs a full
-        host round-trip per cycle (VERDICT r3 ask #4).  Works for both the
-        plain and the mixed-twofloat configurations.
+    def unpad(self, x_glob) -> np.ndarray:
+        """Interior of a padded global array, copied to the host (eager
+        slicing of a sharded array is restricted under sharding-in-types;
+        the solve is over, so a host copy is fine)."""
+        return np.asarray(x_glob)[tuple(slice(0, n) for n in self.npts)]
 
-        Returns ``(x, final_residual, iterations)``; equivalence with the
-        host loop is pinned by tests/test_dist.py / test_dist_kron.py.
-        ``solve`` stays the logging/history path.
+    def solve_compiled_global(self, b: StencilVector = None,
+                              tol: float = 1e-10, maxiter: int = 50):
+        """Fully-jitted sharded solve (``lax.while_loop`` around the
+        shard_map step): one dispatch and one scalar fetch per solve,
+        where :meth:`solve` syncs with the host once per cycle.  Works for
+        both the plain and the mixed-twofloat configurations.
+
+        Returns ``(x_glob, final_residual, iterations)`` with ``x_glob``
+        the padded global iterate, still sharded over the mesh.
         """
         b = b if b is not None else self.problem.b
         step = self._step_raw
-        # cache the jitted runner per (tol, maxiter): a fresh jax.jit
-        # object per call would re-trace on every solve (see
+        # one cached runner with tol and maxiter as traced arguments: a
+        # fresh jax.jit object per call would re-trace on every solve, and
+        # a new tolerance would compile anew (see
         # mg/mixed.py::solve_compiled)
-        key = (float(tol), int(maxiter))
-        cache = getattr(self, "_compiled_runners", None)
-        if cache is None:
-            cache = self._compiled_runners = {}
-
-        if self.mixed and self.mixed_residual == "twofloat":
+        run = getattr(self, "_compiled_runner", None)
+        if run is None and self.mixed and (
+                self.mixed_residual == "twofloat"):
             from poms_tpu.ops.twofloat import merge_f64, split_f64
 
-            if key in cache:
-                x_glob, rn, it = cache[key](self._pad_global(b.interior),
-                                            b.interior)
-                x_int = np.asarray(x_glob)[
-                    tuple(slice(0, n) for n in self.npts)]
-                return (StencilVector.from_interior(self.problem.space,
-                                                    x_int), rn, it)
-
             @jax.jit
-            def run_tf(b_glob, b_int):
+            def run_tf(b_glob, b_int, tol, maxiter):
                 bh, bl = split_f64(b_glob)
                 xh, xl = jnp.zeros_like(bh), jnp.zeros_like(bl)
                 # rn stays f64 in the carry (an O(1) scalar): an f32 carry
                 # could flip the `rn > tol` test by ~6e-8 relative near tol
                 # and desynchronize the iteration count from the host loop,
-                # which compares in f64 (ADVICE r4)
+                # which compares in f64
                 rn0 = jnp.linalg.norm(b_int)
 
                 def cond(st):
@@ -747,19 +735,10 @@ class DistributedMG:
                     cond, body, (xh, xl, bh, bl, rn0, jnp.int32(0)))
                 return merge_f64(st[0], st[1]), st[4], st[5]
 
-            cache[key] = run_tf
-            x_glob, rn, it = run_tf(self._pad_global(b.interior), b.interior)
-        else:
-            if key in cache:
-                x_glob, rn, it = cache[key](self._pad_global(b.interior),
-                                            b.interior)
-                x_int = np.asarray(x_glob)[
-                    tuple(slice(0, n) for n in self.npts)]
-                return (StencilVector.from_interior(self.problem.space,
-                                                    x_int), rn, it)
-
+            run = self._compiled_runner = run_tf
+        elif run is None:
             @jax.jit
-            def run(b_glob, b_int):
+            def run_plain(b_glob, b_int, tol, maxiter):
                 x0 = jnp.zeros_like(b_glob)
                 rn0 = jnp.linalg.norm(b_int).astype(b_glob.dtype)
 
@@ -771,14 +750,22 @@ class DistributedMG:
                     x, rn = step(x, b_glob)
                     return (x, rn.astype(b_glob.dtype), it + 1)
 
-                st = jax.lax.while_loop(cond, body,
-                                        (x0, rn0, jnp.int32(0)))
-                return st
+                return jax.lax.while_loop(cond, body,
+                                          (x0, rn0, jnp.int32(0)))
 
-            cache[key] = run
-            x_glob, rn, it = run(self._pad_global(b.interior), b.interior)
-        x_int = np.asarray(x_glob)[tuple(slice(0, n) for n in self.npts)]
-        x = StencilVector.from_interior(self.problem.space, x_int)
+            run = self._compiled_runner = run_plain
+        return run(self._pad_global(b.interior), b.interior, tol, maxiter)
+
+    def solve_compiled(self, b: StencilVector = None, tol: float = 1e-10,
+                       maxiter: int = 50):
+        """:meth:`solve_compiled_global`, with the iterate unpadded into a
+        StencilVector.  Returns ``(x, final_residual, iterations)``;
+        equivalence with the host loop is pinned by tests/test_dist.py /
+        test_dist_kron.py.  ``solve`` stays the logging/history path.
+        """
+        x_glob, rn, it = self.solve_compiled_global(b, tol, maxiter)
+        x = StencilVector.from_interior(self.problem.space,
+                                        self.unpad(x_glob))
         return x, rn, it
 
     def solve(self, b: StencilVector = None, tol: float = 1e-10,
@@ -806,9 +793,7 @@ class DistributedMG:
             residuals.append(rn)
             it += 1
             converged = rn <= tol
-        # host-side unpad (eager slicing of a sharded array is restricted
-        # under sharding-in-types; the solve is over, so a host copy is fine)
-        x_int = np.asarray(x_glob)[tuple(slice(0, n) for n in self.npts)]
-        x = StencilVector.from_interior(self.problem.space, x_int)
+        x = StencilVector.from_interior(self.problem.space,
+                                        self.unpad(x_glob))
         return SolveResult(x=x, residuals=residuals, iterations=it,
                            converged=converged, wall_times=wall)

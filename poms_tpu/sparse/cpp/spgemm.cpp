@@ -1,6 +1,6 @@
 // Native CSR SpGEMM (SMMP-style two-pass, dense sparse-accumulator rows).
 //
-// TPU-native framework's host-side native kernel for Galerkin coarse-operator
+// The framework's host-side native kernel for Galerkin coarse-operator
 // assembly (SURVEY.md §2 C6): C = A @ B for CSR matrices.  Two passes:
 //   pass 1 computes row counts of C (symbolic),
 //   pass 2 fills column indices and values (numeric),

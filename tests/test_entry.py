@@ -1,8 +1,8 @@
-"""Run the driver entry points in-suite (VERDICT r2 next-round #1).
+"""Run the entry points of __graft_entry__.py in-suite.
 
-MULTICHIP_r02 went red because the driver's ``dryrun_multichip`` path
-diverged from the tested path (no x64 in the driver process).  Running the
-exact driver functions here keeps them pinned to the suite.
+``dryrun_multichip`` once diverged from the tested path (no x64 in the
+calling process).  Running the exact entry functions here keeps them
+pinned to the suite.
 """
 import os
 import sys

@@ -1,10 +1,12 @@
-"""Kronecker-sum operator: structure-exploiting SpMV (TPU-first extra)."""
+"""Kronecker-sum operator: structure-exploiting SpMV."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sps
 
 from poms_tpu.core.vector import StencilVector
 from poms_tpu.mg.cycles import CycleConfig
-from poms_tpu.mg.hierarchy import _kron_operator_from_1d, build_hierarchy
+from poms_tpu.mg.hierarchy import _kron_operator_from_1d
 from poms_tpu.mg.smoother import SmootherConfig
 from poms_tpu.mg.solver import MultigridSolver
 from poms_tpu.models.poisson import poisson_problem
@@ -15,12 +17,74 @@ def _kron_op(prob):
                                   prob.space)
 
 
-@pytest.mark.parametrize("dim,n_el,p", [(1, 12, 2), (2, (8, 10), 3),
-                                        (3, 6, 2)])
-def test_kron_dot_matches_banded(dim, n_el, p):
+def _band_csr(B, pad, periodic):
+    """scipy CSR of a 1D band: row i holds B[i, t] at column i + t − pad."""
+    n = B.shape[0]
+    rows, cols, vals = [], [], []
+    for t in range(2 * pad + 1):
+        j = np.arange(n) + t - pad
+        keep = np.ones(n, bool) if periodic else (j >= 0) & (j < n)
+        rows.append(np.arange(n)[keep])
+        cols.append((j % n)[keep])
+        vals.append(B[keep, t])
+    return sps.csr_matrix((np.concatenate(vals),
+                           (np.concatenate(rows), np.concatenate(cols))),
+                          shape=(n, n))
+
+
+def _kron_oracle(op, x):
+    """Σ_r ⊗_a B_r^(a) · x, one CSR product per axis."""
+    sp = op.space
+    out = np.zeros(x.shape)
+    for term in op.terms:
+        y = x
+        for a, B in enumerate(term):
+            M = _band_csr(np.asarray(B, np.float64), sp.pads[a],
+                          sp.periodic[a])
+            ya = np.moveaxis(y, a, 0)
+            ya = (M @ ya.reshape(ya.shape[0], -1)).reshape(ya.shape)
+            y = np.moveaxis(ya, 0, a)
+        out += y
+    return out
+
+
+def _random_kron(npts, p, periodic, seed=0):
+    from poms_tpu.core.kron import KroneckerSumOperator
+    from poms_tpu.core.space import StencilVectorSpace
+
+    d = len(npts)
+    rng = np.random.default_rng(seed)
+    sp = StencilVectorSpace(npts=npts, pads=(p,) * d,
+                            periodic=(periodic,) * d)
+    Ks = [jnp.asarray(rng.standard_normal((n, 2 * p + 1))) for n in npts]
+    Ms = [jnp.asarray(rng.standard_normal((n, 2 * p + 1))) for n in npts]
+    return KroneckerSumOperator(sp, [[Ks[b] if b == a else Ms[b]
+                                      for b in range(d)] for a in range(d)])
+
+
+@pytest.mark.parametrize("dim,n_el,p,periodic", [
+    pytest.param(1, 12, 2, None, id="1-12-2"),
+    pytest.param(2, (8, 10), 3, None, id="2-n_el1-3"),
+    pytest.param(3, 6, 2, None, id="3-6-2"),
+    # random 1D bands against per-axis CSR products: ragged extents on
+    # every axis, lane widths past powers of two, and periodic wrap
+    pytest.param(3, (8, 12, 130), 2, False, id="random-8x12x130-p2"),
+    pytest.param(3, (10, 130, 140), 3, False, id="random-10x130x140-p3"),
+    pytest.param(3, (8, 8, 128), 2, True, id="random-8x8x128-p2-periodic"),
+    pytest.param(3, (6, 64, 96), 1, False, id="random-6x64x96-p1"),
+])
+def test_kron_dot_matches_banded(dim, n_el, p, periodic):
+    rng = np.random.default_rng(0)
+    if periodic is not None:
+        K = _random_kron(n_el, p, periodic)
+        x = rng.standard_normal(n_el)
+        y_k = K.dot(StencilVector.from_interior(K.space, x))
+        np.testing.assert_allclose(np.asarray(y_k.interior),
+                                   _kron_oracle(K, x), rtol=1e-12,
+                                   atol=1e-12)
+        return
     prob = poisson_problem(dim, n_el, degree=p)
     K = _kron_op(prob)
-    rng = np.random.default_rng(0)
     x = StencilVector.from_interior(prob.space,
                                     rng.standard_normal(prob.space.npts))
     y_k = K.dot(x)
@@ -66,36 +130,3 @@ def test_kron_3d_solver():
     mg = MultigridSolver(prob, num_levels=2, cfg=cfg, operator="kron")
     res = mg.solve(tol=1e-9, maxiter=60)
     assert res.converged
-
-
-def test_kron_matmul_apply_parity(monkeypatch):
-    """Opt-in MXU (dense-matmul) kron apply matches the shifted-MAC path.
-
-    Measured on chip (128³ p3 f32): matmul 0.697 ms (HIGH precision) vs
-    VPU 0.709 — a WASH, because the apply is HBM-bound, not flop-bound;
-    the MXU's free flops don't help a streaming kernel (BASELINE.md r5).
-    Kept opt-in as the measured answer to 'why not the MXU?'."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from poms_tpu.core.kron import KroneckerSumOperator
-    from poms_tpu.core.space import StencilVectorSpace
-
-    rng = np.random.default_rng(5)
-    npts, p = (8, 12, 10), 2
-    sp = StencilVectorSpace(npts=npts, pads=(p,) * 3, periodic=False,
-                            dtype=jnp.float32)
-    Ks = [jnp.asarray(rng.standard_normal((n, 2 * p + 1)), jnp.float32) / 4
-          for n in npts]
-    Ms = [jnp.asarray(rng.standard_normal((n, 2 * p + 1)), jnp.float32) / 4
-          for n in npts]
-    terms = [[Ks[b] if b == a else Ms[b] for b in range(3)]
-             for a in range(3)]
-    op = KroneckerSumOperator(sp, terms)
-    x = jnp.asarray(rng.standard_normal(npts), jnp.float32)
-    monkeypatch.delenv("POMS_TPU_KRON", raising=False)
-    ref = op._apply_interior(x)
-    monkeypatch.setenv("POMS_TPU_KRON", "matmul")
-    out = op._apply_interior(x)
-    denom = float(jnp.max(jnp.abs(ref)))
-    assert float(jnp.max(jnp.abs(out - ref))) / denom < 1e-5

@@ -117,9 +117,12 @@ def test_twofloat_matches_f64_path():
 def test_twofloat_auto_and_guard():
     prob = poisson_problem(1, 16, degree=2, operator="kron")
     mg = MixedPrecisionMG(prob, num_levels=2, operator="kron")
-    assert mg.residual_mode == "twofloat"       # auto picks dw for kron
+    assert mg.residual_mode == "f64"    # the default, kron included
     mg_b = MixedPrecisionMG(poisson_problem(1, 16, degree=2), num_levels=2)
-    assert mg_b.residual_mode == "f64"          # auto keeps f64 for banded
+    assert mg_b.residual_mode == "f64"
+    with pytest.raises(ValueError):
+        MixedPrecisionMG(prob, num_levels=2, operator="kron",
+                         residual="auto")
     with pytest.raises(ValueError):
         MixedPrecisionMG(poisson_problem(1, 16, degree=2), num_levels=2,
                          residual="twofloat")
@@ -220,12 +223,10 @@ def test_pcg_dw_precision_reaches_1e10():
 
     Host-loop, dw leg only on CPU (the f64 PCG leg is covered by the
     other PCG tests): XLA:CPU compiles the fused residual+dot EFT graphs
-    in O(minutes) on this 2-core host — measured 83 s for this exact
-    configuration standalone, pathologically longer for the generic
-    jacobi-on-kron smoother branch.  The compiled while_loop variant and
-    the f64-iteration-parity comparison run on TPU via bench/one_pcg.py
-    (round-4 artifact: 9 iterations at 64^3 and 128^3, vs 8-9 for f64
-    PCG on CPU)."""
+    in minutes, pathologically longer for the generic jacobi-on-kron
+    smoother branch.  The compiled while_loop variant and the
+    f64-iteration-parity comparison run on the card in chip_smoke.py
+    (phases 2 and 3)."""
     import jax.numpy as jnp
 
     prob = poisson_problem(3, 32, degree=3, operator="kron")
@@ -247,9 +248,9 @@ def test_pcg_dw_precision_reaches_1e10():
 def test_pcg_dwrr_converges_to_true_tolerance():
     """Residual-replacement PCG (precision='dwrr', round-5 experiment):
     converges with the stopping test certified on the TRUE dw residual.
-    Kept opt-in: measured on chip at 128³ it loses end-to-end (15 iters ×
-    10.7 ms vs dw's 9 × 14.1 — the f32-A·p saving is real but each
-    replacement restart forfeits CG's superlinearity; BASELINE.md r5)."""
+    Kept opt-in: it took 15 iterations where dw takes 9 at 128³, because
+    each replacement restart forfeits CG's superlinearity; on the H100 it
+    is not measured."""
     import jax.numpy as jnp
 
     from poms_tpu.mg.cycles import CycleConfig

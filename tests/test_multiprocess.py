@@ -1,7 +1,7 @@
 """Multi-PROCESS test tier (SURVEY.md §4; VERDICT r2 ask #5).
 
 The reference tests its MPI layer with ``mpiexec -n 2`` on localhost; the
-TPU-native equivalent launches 2 OS processes, each with 4 virtual CPU
+JAX equivalent launches 2 OS processes, each with 4 virtual CPU
 devices, bootstraps them into one 8-device job via
 ``poms_tpu.parallel.bootstrap.initialize`` (jax.distributed under the
 hood), and runs a sharded halo-exchange step over a mesh that SPANS THE

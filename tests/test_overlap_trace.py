@@ -1,9 +1,8 @@
 """Overlap trace-capture machinery (VERDICT r2 ask #6).
 
 On the CPU mesh this validates capture → parse → classify → report; true
-concurrency numbers require real multi-chip hardware (the artifact
-overlap_r03_cpu.json records the CPU run, bench/overlap_trace.py the TPU
-protocol).
+concurrency numbers require several real cards (bench/overlap_trace.py
+runs on whatever devices JAX finds).
 """
 from poms_tpu.bench.overlap_trace import (_intersect_len, _merge,
                                           overlap_report, run_overlap_check)
@@ -39,14 +38,11 @@ def test_capture_on_mesh(tmp_path):
 def test_overlap_ab_control(tmp_path):
     """A/B control (VERDICT r3 ask #5): both arms produce fractions.
 
-    Finding recorded in overlap_r04_cpu.json: on the CPU mesh the control
-    (overlap=False) fraction is statistically indistinguishable from the
-    treatment — XLA:CPU executes collectives synchronously, so CPU traces
-    cannot prove (or disprove) TPU scheduling overlap.  The test therefore
-    asserts the MACHINERY (both arms parse, fractions in range), not an
-    inequality the backend cannot express; the TPU-side evidence is the
-    1-chip trace artifact overlap_r04_tpu.json + the (hardware-blocked)
-    multi-chip protocol."""
+    On the CPU mesh the control (overlap=False) fraction is statistically
+    indistinguishable from the treatment — XLA:CPU executes collectives
+    synchronously, so CPU traces cannot prove (or disprove) overlap on the
+    cards.  The test therefore asserts the MACHINERY (both arms parse,
+    fractions in range), not an inequality the backend cannot express."""
     from poms_tpu.bench.overlap_trace import run_overlap_ab
 
     rep = run_overlap_ab(str(tmp_path / "ab.json"), n_el=16)

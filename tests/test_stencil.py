@@ -41,15 +41,61 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("npts,pads,periodic", CASES)
-def test_spmv_vs_scipy(npts, pads, periodic):
+def _dirichlet(npts, p):
+    return (npts, (p,) * len(npts), (False,) * len(npts))
+
+
+# Shapes that stress the shifted-MAC apply: ragged 1D/2D/3D extents, lane
+# widths just past powers of two, odd middle extents and p = 3 on tiny
+# grids, where most stencil reads fall in the ghost layer.
+KERNEL_CASES = [_dirichlet(n, p) for n, p in [
+    ((32,), 3), ((600,), 2), ((513,), 1),
+    ((16, 24), 2), ((40, 140), 3),
+    ((8, 12, 20), 1), ((10, 9, 130), 2),
+    ((6, 8, 10), 1), ((6, 9, 10), 1), ((6, 7, 10), 2), ((8, 17, 10), 3),
+    ((8, 64, 64), 3), ((8, 65, 64), 3), ((5, 4, 7), 3), ((5, 5, 7), 3),
+]]
+
+_SPMV_PARAMS = (
+    [pytest.param(*c, np.float64, id=f"npts{i}-pads{i}-periodic{i}")
+     for i, c in enumerate(CASES)]
+    + [pytest.param(*c, np.float32, id=f"f32-{i}") for i, c in
+       enumerate(CASES)]
+    + [pytest.param(*c, dt, id=f"kernel{i}-{np.dtype(dt).name}")
+       for i, c in enumerate(KERNEL_CASES) for dt in (np.float64,
+                                                       np.float32)])
+
+
+def f32_sum_bound(n_terms):
+    """γ_n = n·u/(1 − n·u): the worst-case relative error of an n-term f32
+    sum, taken against Σ|a_k·x_k| (Higham, Accuracy and Stability, §3.1)."""
+    u = 2.0 ** -24
+    return n_terms * u / (1 - n_terms * u)
+
+
+@pytest.mark.parametrize("npts,pads,periodic,dtype", _SPMV_PARAMS)
+def test_spmv_vs_scipy(npts, pads, periodic, dtype):
     space, A = random_stencil(npts, pads, periodic, seed=42)
     rng = np.random.default_rng(7)
     x_int = rng.standard_normal(npts)
-    x = StencilVector.from_interior(space, x_int)
-    y = A.dot(x)
-    y_ref = A.tocsr() @ x_int.ravel()
-    np.testing.assert_allclose(y.toarray(), y_ref, rtol=1e-12, atol=1e-12)
+    if dtype == np.float32:
+        # the oracle gets the same f32-rounded band and vector in f64
+        A = StencilMatrix(space.with_dtype(jnp.float32),
+                          band_t=A.band_t.astype(jnp.float32))
+        x_int = x_int.astype(np.float32)
+    x = StencilVector.from_interior(A.space, x_int)
+    y = A.dot(x).interior
+    assert y.dtype == jnp.dtype(dtype)
+    y = np.asarray(y, np.float64).ravel()
+    csr = A.tocsr().astype(np.float64)
+    x64 = x_int.astype(np.float64).ravel()
+    y_ref = csr @ x64
+    if dtype == np.float64:
+        np.testing.assert_allclose(y, y_ref, rtol=1e-12, atol=1e-12)
+    else:
+        bound = f32_sum_bound(int(np.prod(space.band_shape)))
+        scale = abs(csr) @ np.abs(x64)
+        assert np.all(np.abs(y - y_ref) <= bound * scale + 1e-30)
 
 
 @pytest.mark.parametrize("npts,pads,periodic", CASES[:4])

@@ -1,7 +1,7 @@
 """Double-word f32 (EFT) arithmetic vs f64 ground truth (SURVEY.md §7.2.1).
 
 These run on CPU with x64 enabled so f64 is exact ground truth; the point
-of the module is that on TPU the same code is pure f32 VPU work.
+of the module is that the same code is pure f32 arithmetic.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -22,6 +22,37 @@ def test_split_merge_accuracy():
     assert hi.dtype == jnp.float32 and lo.dtype == jnp.float32
     np.testing.assert_allclose(np.asarray(tf.merge_f64(hi, lo)),
                                np.asarray(x), rtol=2e-15, atol=0)
+
+
+@pytest.mark.parametrize("decades", [(-3, 3), (-20, 30)])
+def test_split_exact_under_jit(decades):
+    """The jitted split carries x to 2⁻⁴⁹ with a normalised low word, over
+    a wide range of magnitudes, ties and exponent carries included."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    mag = 10.0 ** rng.integers(*decades, 4000)
+    x = np.concatenate([rng.standard_normal(4000) * mag,
+                        [0.0, 2.0 - 2.0 ** -30, 1.0 + 2.0 ** -24,
+                         -(1.0 + 2.0 ** -24)]])
+    hi, lo = jax.jit(tf.split_f64)(jnp.asarray(x))
+    hi, lo = np.asarray(hi), np.asarray(lo)
+    err = np.abs(x - (hi.astype(np.float64) + lo.astype(np.float64)))
+    assert (err <= 2.0 ** -49 * np.abs(x)).all()
+    assert (np.abs(lo) <= np.spacing(np.abs(hi)) / 2).all()
+
+
+def test_split_never_widens_a_narrowed_value():
+    """XLA:GPU folds a convert pair f64 → f32 → f64 into the identity, so
+    a split that subtracts ``f64(f32(x))`` from x gets lo = 0 there.  The
+    split must not widen anything back to f64."""
+    import jax
+
+    jaxpr = jax.make_jaxpr(tf.split_f64)(_rand((8,), 0))
+    widen = [e for e in jaxpr.jaxpr.eqns
+             if e.primitive.name == "convert_element_type"
+             and e.params["new_dtype"] == jnp.float64]
+    assert not widen, widen
 
 
 def test_two_sum_exact():
